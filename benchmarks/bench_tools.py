@@ -1,33 +1,36 @@
-"""QPS-at-parity on the TOOLS-BUILT 1M index (VERDICT r3 item 9 / r4 item 1).
+"""QPS-at-parity on the TOOLS-BUILT 1M index.
 
-The index at NEXTSEARCH_TOOLS_ROOT (default /tmp/nextsearch_tools_1m) is
-built end-to-end by the product CLI pipeline (tools/make_synthetic ->
+The index at NEXTSEARCH_TOOLS_ROOT (default <repo>/.bench_cache/tools_1m)
+is built end-to-end by the product CLI pipeline (tools/make_synthetic ->
 tools/forwardindex -> tools/lexicon); this harness measures reload time,
 pins, guard-trip rate, and pipelined QPS at exact parity on it — the df
 profile of tokenized text is the corpus closest to the north star's
 "~1M CORD-19 docs". Build it with: bash benchmarks/build_tools_index.sh
+Fails without a GPU; prints the device and the card beside its numbers.
 """
 import sys, time, os
-sys.path.insert(0, "/root/repo")
-from nextsearch_tpu.utils.compilecache import enable_compilation_cache
+from pathlib import Path
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+from nextsearch.utils.compilecache import enable_compilation_cache
+from nextsearch.utils.device import card_line, require_gpu
 enable_compilation_cache()
+print(f"device {require_gpu()} card {card_line()}", flush=True)
 import numpy as np
-from nextsearch_tpu.config import DeviceConfig, EngineConfig
-from nextsearch_tpu.index.segment import DeviceIndex
-from nextsearch_tpu.index.artifacts import load_segment_cached
+from nextsearch.config import DeviceConfig, EngineConfig
+from nextsearch.index.segment import DeviceIndex
+from nextsearch.index.artifacts import load_segment_cached
 
 t0 = time.time()
-root = os.environ.get("NEXTSEARCH_TOOLS_ROOT", "/tmp/nextsearch_tools_1m")
+root = os.environ.get("NEXTSEARCH_TOOLS_ROOT",
+                      str(REPO / ".bench_cache" / "tools_1m"))
 seg = load_segment_cached(root + "/index/segments/seg_000001")
 print(f"segment load (binary->artifact) {time.time()-t0:.1f}s: "
       f"{seg.N} docs, {len(seg.terms)} terms, {seg.num_postings} postings", flush=True)
-# Defaults = the measured round-5 frontier for tokenized-text df profiles
-# (STATUS r5): 8 GiB dense rows (the HBM ceiling next to 2x in-flight f32
-# H; buildable since the donated block-write scatter removed the 2x-table
-# concat peak) + a 2^10-granularity light table (1 GiB) + a high rescue
-# cap (relaunches would race the 8 GiB table for HBM; host rescues are
-# memoized). Measured: 10,399 QPS vs 9,964 at the old 7 GiB / 2^9 point;
-# 8 GiB + 2^12 table measured 8,653 (deeper rescore), h_bf16 7.0-7.3k.
+# Defaults for tokenized-text df profiles: 8 GiB dense rows (room next to
+# two in-flight f32 H buffers), a 2^10-granularity light table (1 GiB) and
+# a high host-rescue cap (host rescues are memoized; a relaunch would need
+# room for the full-table exact kernel). Not yet measured on the GPU.
 os.environ.setdefault("NEXTSEARCH_TRIP_RESCUE", "64")
 os.environ.setdefault("NEXTSEARCH_LIGHT_TABLE_BYTES", str(1 << 30))
 cfg = EngineConfig(device=DeviceConfig(
@@ -62,7 +65,7 @@ t0 = time.time(); di.search_batch(batches[0], k=10)
 print(f"warm {time.time()-t0:.1f}s", flush=True)
 
 # parity gate vs oracle
-from nextsearch_tpu.index.oracle import oracle_search
+from nextsearch.index.oracle import oracle_search
 osegs = [seg.to_oracle_segment()]
 for terms, res in zip(batches[1][:8], di.search_batch(batches[1][:8], k=10)):
     hits, found = oracle_search(osegs, terms, k=10)

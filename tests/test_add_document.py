@@ -7,13 +7,13 @@ import zipfile
 
 import pytest
 
-from nextsearch_tpu.api.ai import AzureOpenAIConfig
-from nextsearch_tpu.api.feedback import FeedbackManager
-from nextsearch_tpu.api.server import ServerContext, make_server
-from nextsearch_tpu.api.stats import StatsTracker
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+from nextsearch.api.ai import AzureOpenAIConfig
+from nextsearch.api.feedback import FeedbackManager
+from nextsearch.api.server import ServerContext, make_server
+from nextsearch.api.stats import StatsTracker
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import save_manifest, write_segment
 
 from test_engine import DOCS_SEG1, METADATA_CSV
 

@@ -5,13 +5,13 @@ import threading
 
 import pytest
 
-from nextsearch_tpu.api.ai import AzureOpenAIConfig
-from nextsearch_tpu.api.feedback import FeedbackManager
-from nextsearch_tpu.api.server import ServerContext, make_server
-from nextsearch_tpu.api.stats import StatsTracker
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+from nextsearch.api.ai import AzureOpenAIConfig
+from nextsearch.api.feedback import FeedbackManager
+from nextsearch.api.server import ServerContext, make_server
+from nextsearch.api.stats import StatsTracker
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import save_manifest, write_segment
 
 from test_engine import DOCS_SEG1, DOCS_SEG2, METADATA_CSV
 
@@ -349,8 +349,8 @@ def test_search_batch_native_render(tmp_path):
     match the Python-render server bit-for-bit."""
     from dataclasses import replace
 
-    from nextsearch_tpu import native
-    from nextsearch_tpu.config import DEFAULT_CONFIG
+    from nextsearch import native
+    from nextsearch.config import DEFAULT_CONFIG
 
     if not native.available():
         pytest.skip("native library unavailable")

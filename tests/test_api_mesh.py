@@ -14,14 +14,14 @@ import pytest
 
 import jax
 
-from nextsearch_tpu.api.ai import AzureOpenAIConfig
-from nextsearch_tpu.api.feedback import FeedbackManager
-from nextsearch_tpu.api.server import ServerContext, make_server
-from nextsearch_tpu.api.stats import StatsTracker
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
-from nextsearch_tpu.parallel.mesh import make_mesh
+from nextsearch.api.ai import AzureOpenAIConfig
+from nextsearch.api.feedback import FeedbackManager
+from nextsearch.api.server import ServerContext, make_server
+from nextsearch.api.stats import StatsTracker
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import save_manifest, write_segment
+from nextsearch.parallel.mesh import make_mesh
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -141,7 +141,7 @@ def test_mesh_stats_and_cache(server):
 
 def test_mesh_cli_flag_parsing():
     """--mesh dp,seg is parsed and stripped from positional args."""
-    from nextsearch_tpu.api import server as srvmod
+    from nextsearch.api import server as srvmod
 
     rc = srvmod.main(["--mesh", "nonsense"])
     assert rc == 1

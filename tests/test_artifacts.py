@@ -6,14 +6,14 @@ import time
 import numpy as np
 import pytest
 
-from nextsearch_tpu.index.artifacts import (
+from nextsearch.index.artifacts import (
     artifact_fresh,
     load_artifact,
     load_segment_cached,
     save_artifact,
 )
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import write_segment
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import write_segment
 
 from conftest import make_synthetic_docs
 
@@ -85,13 +85,13 @@ def test_artifact_stale_on_bm25_param_change(tmp_path):
     """An artifact baked with one (k1, b) must not serve another's scores."""
     import numpy as np
 
-    from nextsearch_tpu.index.artifacts import (
+    from nextsearch.index.artifacts import (
         load_artifact,
         load_segment_cached,
         save_artifact,
     )
-    from nextsearch_tpu.index.builder import build_segment_arrays, eager_scores
-    from nextsearch_tpu.index.segmentio import write_segment
+    from nextsearch.index.builder import build_segment_arrays, eager_scores
+    from nextsearch.index.segmentio import write_segment
 
     from conftest import make_synthetic_docs
 

@@ -2,7 +2,7 @@
 
 import pytest
 
-from nextsearch_tpu.models.autocomplete import AutocompleteIndex, split_last_token
+from nextsearch.models.autocomplete import AutocompleteIndex, split_last_token
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +81,7 @@ def test_prefix_cache_matches_bruteforce():
     """Cached (len<=4), windowed, and full-table paths all equal brute force."""
     import numpy as np
 
-    from nextsearch_tpu.models.autocomplete import AutocompleteIndex
+    from nextsearch.models.autocomplete import AutocompleteIndex
 
     r = np.random.default_rng(12)
     # vocabulary with dense shared prefixes at many lengths
@@ -114,12 +114,12 @@ def test_prefix_cache_matches_bruteforce():
 
 def test_prefix_cache_wide_vocab_uses_cache(monkeypatch):
     """Short-prefix lookups never launch a device kernel."""
-    from nextsearch_tpu.models.autocomplete import AutocompleteIndex
+    from nextsearch.models.autocomplete import AutocompleteIndex
 
     ac = AutocompleteIndex()
     ac.build({f"term{i:05d}": i + 1 for i in range(5000)})
 
-    import nextsearch_tpu.ops.prefix as prefix_ops
+    import nextsearch.ops.prefix as prefix_ops
 
     def boom(*a, **k):
         raise AssertionError("device kernel must not run for short prefixes")
@@ -136,7 +136,7 @@ def test_host_narrow_range_matches_device_path():
     (score desc, term asc)."""
     import numpy as np
 
-    from nextsearch_tpu.models.autocomplete import AutocompleteIndex
+    from nextsearch.models.autocomplete import AutocompleteIndex
 
     rng = np.random.default_rng(3)
     terms = {}

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from nextsearch_tpu.config import DEFAULT_CONFIG, DeviceConfig, EngineConfig
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.oracle import oracle_search
-from nextsearch_tpu.index.segment import DeviceIndex
+from nextsearch.config import DEFAULT_CONFIG, DeviceConfig, EngineConfig
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.oracle import oracle_search
+from nextsearch.index.segment import DeviceIndex
 
 from conftest import make_synthetic_docs
 

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from nextsearch_tpu.index.builder import build_segment_arrays, eager_scores
-from nextsearch_tpu.index.oracle import oracle_posting_scores
+from nextsearch.index.builder import build_segment_arrays, eager_scores
+from nextsearch.index.oracle import oracle_posting_scores
 
 
 def _docs():

@@ -8,9 +8,9 @@ import threading
 
 import pytest
 
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import save_manifest, write_segment
 
 
 @pytest.fixture()
@@ -39,9 +39,9 @@ def test_search_serves_during_slow_reload(engine, monkeypatch, tmp_path):
     visible."""
     import time
 
-    from nextsearch_tpu.index import artifacts as _artifacts
-    from nextsearch_tpu.index.builder import build_segment_arrays
-    from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+    from nextsearch.index import artifacts as _artifacts
+    from nextsearch.index.builder import build_segment_arrays
+    from nextsearch.index.segmentio import save_manifest, write_segment
 
     d = engine.index_dir
     docs2 = [

@@ -6,9 +6,9 @@ failure aborts without clobbering state; AI endpoints 503 without config.
 
 import numpy as np
 
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import save_manifest, write_segment
 
 
 def _make_index(tmp_path, name="index"):
@@ -64,7 +64,7 @@ def test_missing_metadata_csv_searches_without_fields(tmp_path):
 
 
 def test_structured_logging(capsys, monkeypatch):
-    from nextsearch_tpu.utils import logging as nslog
+    from nextsearch.utils import logging as nslog
 
     monkeypatch.setenv("NEXTSEARCH_LOG_JSON", "1")
     nslog.log("reload", "loaded", segments=3)

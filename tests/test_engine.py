@@ -5,9 +5,9 @@ import json
 import numpy as np
 import pytest
 
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import save_manifest, write_segment
 
 DOCS_SEG1 = [
     {"cord_uid": "uid01", "title": "covid vaccine", "relpath": "d/1.json",
@@ -124,7 +124,7 @@ def test_search_batch_mixed_cache(engine):
 
 
 def test_scores_match_oracle(engine):
-    from nextsearch_tpu.index.oracle import oracle_search
+    from nextsearch.index.oracle import oracle_search
 
     segs = [s.to_oracle_segment() for s in engine.index.segments]
     j = engine.search("covid vaccine trial", 10)

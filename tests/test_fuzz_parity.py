@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.oracle import oracle_search
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
-from nextsearch_tpu.utils.textutil import filter_terms, tokenize
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.oracle import oracle_search
+from nextsearch.index.segmentio import save_manifest, write_segment
+from nextsearch.utils.textutil import filter_terms, tokenize
 
 from conftest import make_synthetic_docs
 

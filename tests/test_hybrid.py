@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segment import DeviceIndex
-from nextsearch_tpu.models.hybrid import HybridIndex
-from nextsearch_tpu.models.semantic import SemanticIndex
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segment import DeviceIndex
+from nextsearch.models.hybrid import HybridIndex
+from nextsearch.models.semantic import SemanticIndex
 
 
 @pytest.fixture(scope="module")
@@ -120,9 +120,9 @@ def test_engine_hybrid_endpoint(tmp_path, monkeypatch):
     """Engine.search_hybrid: response shape + fallback without embeddings."""
     import numpy as np
 
-    from nextsearch_tpu.engine import Engine
-    from nextsearch_tpu.index.builder import build_segment_arrays
-    from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+    from nextsearch.engine import Engine
+    from nextsearch.index.builder import build_segment_arrays
+    from nextsearch.index.segmentio import save_manifest, write_segment
 
     d = tmp_path / "index"
     (d / "segments").mkdir(parents=True)
@@ -159,10 +159,10 @@ def test_hybrid_over_sparse_mode_index(setup):
     """Hybrid over a sparse-mode index (the production serving mode) must
     match hybrid over the default fused index. The rerank now chains
     directly on the sparse packed DEVICE array (shortcut-free launch, one
-    'hybrid' handle, no host round trip — the old hybrid_host path cost a
-    synchronous ~25-30 ms relay RTT per batch); guard trips resolve
+    'hybrid' handle, no host round trip — the old hybrid_host path paid a
+    synchronous host round trip per batch); guard trips resolve
     through the exact host fix-up at gather."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     di, sem = setup
     segs = di.segments
@@ -198,7 +198,7 @@ def test_hybrid_sparse_guard_trip_fixup(setup, monkeypatch):
     """With fast_heavy_eps=1e9 every sparse row trips the BM25 guard; the
     hybrid gather must fix those rows up exactly host-side and still match
     the fused-index hybrid results."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     di, sem = setup
     segs = di.segments
@@ -233,7 +233,7 @@ def test_hybrid_all_fill_batch(setup):
     head-heavy) skips the BM25 launch entirely; the hybrid still reranks
     the fill candidates in one device launch and matches the fused-index
     hybrid."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     di, sem = setup
     segs = di.segments

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from nextsearch_tpu import native
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.utils.textutil import tokenize
+from nextsearch import native
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.utils.textutil import tokenize
 
 from conftest import make_synthetic_docs
 
@@ -74,7 +74,7 @@ def test_builder_parity_synthetic():
 
 
 def test_csv_scan_parity(tmp_path):
-    from nextsearch_tpu.index.metadata import load_metadata_uid_meta
+    from nextsearch.index.metadata import load_metadata_uid_meta
 
     csv = (
         "cord_uid,title,authors\n"
@@ -107,10 +107,10 @@ def test_native_renderer_parity(tmp_path):
     import json
     from dataclasses import replace
 
-    from nextsearch_tpu.config import DEFAULT_CONFIG
-    from nextsearch_tpu.engine import Engine
-    from nextsearch_tpu.index.builder import build_segment_arrays
-    from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+    from nextsearch.config import DEFAULT_CONFIG
+    from nextsearch.engine import Engine
+    from nextsearch.index.builder import build_segment_arrays
+    from nextsearch.index.segmentio import save_manifest, write_segment
 
     if not native.available():
         pytest.skip("native library unavailable")

@@ -4,7 +4,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from nextsearch_tpu.ops.bm25 import (
+from nextsearch.ops.bm25 import (
     canonical_sort,
     exact_rescore,
     expand_chunks,
@@ -73,7 +73,7 @@ def test_sort2_two_level_matches_one_level(monkeypatch):
     runs, empty queries, and runs that start mid-row."""
     import numpy as np
 
-    from nextsearch_tpu.ops.bm25_sparse import per_query_topk_flat
+    from nextsearch.ops.bm25_sparse import per_query_topk_flat
 
     rng = np.random.default_rng(3)
     Q, k2 = 64, 32

@@ -5,8 +5,8 @@ def test_oracle_search_vec_bitexact():
     including tie order, found counts and multi-segment merges."""
     import numpy as np
 
-    from nextsearch_tpu.index.builder import build_segment_arrays
-    from nextsearch_tpu.index.oracle import oracle_search, oracle_search_vec
+    from nextsearch.index.builder import build_segment_arrays
+    from nextsearch.index.oracle import oracle_search, oracle_search_vec
 
     r = np.random.default_rng(23)
     words = [f"w{i:03d}" for i in range(60)]

@@ -10,9 +10,9 @@ IDENTICAL static shapes, so XLA compiles exactly one program.
 import numpy as np
 import pytest
 
-from nextsearch_tpu.config import DeviceConfig, EngineConfig
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segment import DeviceIndex
+from nextsearch.config import DeviceConfig, EngineConfig
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segment import DeviceIndex
 
 
 def _mk_segments(n_docs=300, vocab=48, seed=7):
@@ -172,8 +172,8 @@ def test_scoped_pin_beats_global(sparse_index):
 
 
 def test_engine_warmup_pins_scopes(tmp_path, monkeypatch):
-    from nextsearch_tpu.engine import Engine
-    from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+    from nextsearch.engine import Engine
+    from nextsearch.index.segmentio import save_manifest, write_segment
 
     d = tmp_path / "index"
     (d / "segments").mkdir(parents=True)
@@ -185,7 +185,7 @@ def test_engine_warmup_pins_scopes(tmp_path, monkeypatch):
         }
         for i in range(200)
     ]
-    from nextsearch_tpu.index.builder import build_segment_arrays
+    from nextsearch.index.builder import build_segment_arrays
 
     write_segment(build_segment_arrays(docs), d / "segments" / "seg_000001")
     save_manifest(d / "manifest.bin", ["seg_000001"])
@@ -194,7 +194,7 @@ def test_engine_warmup_pins_scopes(tmp_path, monkeypatch):
     assert eng.reload()
     assert eng.warmup(k_values=(10,)) > 0
     # warmup pinned one scope per distinct warmup Q envelope
-    from nextsearch_tpu.index.segment import _bucket as _b
+    from nextsearch.index.segment import _bucket as _b
 
     # r4: warmup covers the full Q-bucket ladder (any coalesced serving
     # batch size must hit a precompiled envelope), plus multiples of the
@@ -213,8 +213,8 @@ def test_engine_warmup_pins_scopes(tmp_path, monkeypatch):
 def test_sharded_pin_shapes():
     import jax
 
-    from nextsearch_tpu.parallel.mesh import make_mesh
-    from nextsearch_tpu.parallel.sharded import ShardedIndex
+    from nextsearch.parallel.mesh import make_mesh
+    from nextsearch.parallel.sharded import ShardedIndex
 
     segs = _mk_segments() + _mk_segments(seed=8)
     mesh = make_mesh(dp=2, seg=2, devices=jax.devices()[:4])
@@ -271,7 +271,7 @@ def test_pick_shape_off_ladder_rounds_to_top_bucket():
     the largest bucket — raw sizes would give every serving batch its own
     compiled shape (engine cache hits shrink pending counts 512 -> 460 ->
     422 -> ..., measured as one fresh ~25s XLA compile PER BATCH)."""
-    from nextsearch_tpu.index.segment import _pick_shape
+    from nextsearch.index.segment import _pick_shape
 
     ladder = (1, 8, 16, 32, 64, 128)
     assert _pick_shape(460, ladder, None) == 512

@@ -13,13 +13,13 @@ import time
 
 import pytest
 
-from nextsearch_tpu.api.batching import MicroBatcher, SearchBatcher
-from nextsearch_tpu.api.caches import LRUCache
-from nextsearch_tpu.api.stats import StatsTracker
-from nextsearch_tpu.config import BatchingConfig, CacheConfig, EngineConfig
-from nextsearch_tpu.engine import Engine
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import save_manifest, write_segment
+from nextsearch.api.batching import MicroBatcher, SearchBatcher
+from nextsearch.api.caches import LRUCache
+from nextsearch.api.stats import StatsTracker
+from nextsearch.config import BatchingConfig, CacheConfig, EngineConfig
+from nextsearch.engine import Engine
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import save_manifest, write_segment
 
 
 @pytest.fixture()

@@ -1,6 +1,6 @@
 """Cross-validate the NumPy oracle against compiled C++ float semantics.
 
-index/oracle.py is the parity anchor every TPU kernel is tested against;
+index/oracle.py is the parity anchor every device kernel is tested against;
 this test closes the loop by asserting the oracle is bit-identical to an
 independently-written C++ program (native/refcheck.cpp) that follows the
 reference engine's scoring loop (/root/reference/src/api_engine.cpp:441-496)
@@ -15,9 +15,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.oracle import oracle_search
-from nextsearch_tpu.index.segmentio import write_segment
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.oracle import oracle_search
+from nextsearch.index.segmentio import write_segment
 
 from conftest import make_synthetic_docs
 
@@ -31,7 +31,7 @@ def refcheck_bin(tmp_path_factory):
     from pathlib import Path
 
     src = Path(__file__).resolve().parent.parent / (
-        "nextsearch_tpu/native/refcheck.cpp"
+        "nextsearch/native/refcheck.cpp"
     )
     out = tmp_path_factory.mktemp("refcheck") / "refcheck"
     subprocess.run(

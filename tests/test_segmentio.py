@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.segmentio import (
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.segmentio import (
     discover_segments,
     load_manifest,
     load_segment,
@@ -91,7 +91,7 @@ def test_forward_bin_doc_major_sorted(tmp_path, seg):
 
 
 def test_segment_writer(tmp_path):
-    from nextsearch_tpu.index.segmentio import SegmentWriter
+    from nextsearch.index.segmentio import SegmentWriter
 
     w = SegmentWriter()
     w.add_document("u1", "covid vaccine trial", title="T1")

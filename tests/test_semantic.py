@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from nextsearch_tpu.models.semantic import SemanticIndex
+from nextsearch.models.semantic import SemanticIndex
 
 
 def _make_index():

@@ -5,11 +5,11 @@ import pytest
 
 import jax
 
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.oracle import oracle_search
-from nextsearch_tpu.index.segment import DeviceIndex
-from nextsearch_tpu.parallel.mesh import make_mesh
-from nextsearch_tpu.parallel.sharded import ShardedIndex
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.oracle import oracle_search
+from nextsearch.index.segment import DeviceIndex
+from nextsearch.parallel.mesh import make_mesh
+from nextsearch.parallel.sharded import ShardedIndex
 
 from conftest import make_synthetic_docs
 
@@ -47,7 +47,7 @@ QUERIES = [
     ],
 )
 def test_sharded_matches_oracle(segs, dp, seg, mode):
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     cfg = EngineConfig(
         device=DeviceConfig(mode=mode, posting_block=64, chunk_buckets=(64, 256))
@@ -98,7 +98,7 @@ def test_more_shards_than_segments():
 
 def test_sharded_dense_rows_parity(segs):
     """Force the dense-row (heavy term) path on the sharded kernel."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     cfg = EngineConfig(
         device=DeviceConfig(
@@ -161,8 +161,8 @@ def test_common_index_interface(segs):
 
 def test_sharded_engine_warmup(tmp_path, segs):
     """Engine.warmup() must work against a mesh-backed (sharded) index."""
-    from nextsearch_tpu.engine import Engine
-    from nextsearch_tpu.index.segmentio import write_segment
+    from nextsearch.engine import Engine
+    from nextsearch.index.segmentio import write_segment
 
     segdir = tmp_path / "segments"
     for i, seg in enumerate(segs[:2]):
@@ -195,7 +195,7 @@ def test_sharded_fast_heavy_guard(segs, eps):
     mostly passes (CPU dots are exact); eps=1e9 trips every non-trivial
     query and the whole batch relaunches the wide HIGHEST kernel (24
     trips > the rescue cap) — both must match the oracle exactly."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     cfg = EngineConfig(
         device=DeviceConfig(
@@ -218,7 +218,7 @@ def test_sharded_guard_trip_host_rescue(segs, monkeypatch):
     """With the rescue cap raised, every tripped query is re-scored by the
     vectorized host oracle with GLOBAL shard-major slot mapping
     (segment_slot_bases) instead of the wide relaunch — bit-exact."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     monkeypatch.setenv("NEXTSEARCH_TRIP_RESCUE", "100")
     cfg = EngineConfig(
@@ -244,7 +244,7 @@ def test_sharded_row_topk_shortcut_parity(segs):
     order, found = sum of shard-global dfs), including inside a mixed
     batch and at w != 1; the shortcut must NOT fire for terms that are
     light in any shard, duplicate-term, or multi-term queries."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     cfg = EngineConfig(
         device=DeviceConfig(
@@ -285,7 +285,7 @@ def test_sharded_light_topk_shortcut_parity(segs):
     occurrence), df above and below the prefix width, and found =
     summed per-occurrence dfs. k > light_topk_k, duplicate-term, and
     mixed heavy/light terms keep the kernel path."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     cfg = EngineConfig(
         device=DeviceConfig(
@@ -347,7 +347,7 @@ def test_sharded_light_topk_shortcut_parity(segs):
 def test_sharded_probe_applies_shortcut(segs):
     """pin_shapes' workload probe must exclude shortcut-eligible 1-term
     queries, so an all-eligible batch pins the minimum C/L budgets."""
-    from nextsearch_tpu.config import DeviceConfig, EngineConfig
+    from nextsearch.config import DeviceConfig, EngineConfig
 
     cfg = EngineConfig(
         device=DeviceConfig(
@@ -377,3 +377,33 @@ def test_sharded_probe_applies_shortcut(segs):
         raw_pi[:, :, tb : 2 * tb], si.config.device.posting_block
     )
     assert raw_c > 1  # the raw plan would have sized real postings
+
+
+def test_sharded_smaller_batch_reuses_warmed_envelope(segs):
+    """A batch smaller than the warmed size (engine cache hits shrink it)
+    pads up to the nearest larger warmed Q envelope instead of compiling a
+    shape of its own mid-serving; results stay oracle-exact."""
+    from nextsearch.config import DeviceConfig, EngineConfig
+
+    cfg = EngineConfig(
+        device=DeviceConfig(
+            mode="sparse", posting_block=64, chunk_buckets=(64, 256, 1024),
+            dense_df_ratio=0.02,
+        )
+    )
+    si = ShardedIndex(
+        segs, make_mesh(dp=2, seg=2, devices=jax.devices()[:4]), config=cfg
+    )
+    r = np.random.default_rng(31)
+    words = [f"w{i:04d}" for i in range(220)]
+    queries = [
+        [(words[int(r.integers(0, 220))], 1.0)
+         for _ in range(int(r.integers(2, 4)))]
+        for _ in range(16)
+    ]
+    ((qb, _pins),) = si.pin_shapes([queries], scope_q=True).items()
+    assert qb == 16
+    for n in (13, 10, 1):
+        plan, _u = si.plan_sparse(queries[:n])
+        assert plan.shape[1] == qb, (n, plan.shape)
+    _oracle_parity(si, segs, queries[:13])

@@ -15,10 +15,10 @@ batches through the production sparse path, and asserts:
 import numpy as np
 import pytest
 
-from nextsearch_tpu.config import DeviceConfig, EngineConfig
-from nextsearch_tpu.index.builder import build_segment_arrays
-from nextsearch_tpu.index.oracle import oracle_search
-from nextsearch_tpu.index.segment import DeviceIndex
+from nextsearch.config import DeviceConfig, EngineConfig
+from nextsearch.index.builder import build_segment_arrays
+from nextsearch.index.oracle import oracle_search
+from nextsearch.index.segment import DeviceIndex
 
 
 @pytest.fixture(scope="module")

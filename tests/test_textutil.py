@@ -1,6 +1,6 @@
 """Tokenizer/stoplist parity tests (reference: include/textutil.hpp)."""
 
-from nextsearch_tpu.utils.textutil import (
+from nextsearch.utils.textutil import (
     STOPWORDS,
     filter_terms,
     is_stopword,

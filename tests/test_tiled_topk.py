@@ -6,7 +6,7 @@ import pytest
 import jax.numpy as jnp
 from jax import lax
 
-from nextsearch_tpu.ops.bm25 import tiled_topk
+from nextsearch.ops.bm25 import tiled_topk
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -5,8 +5,8 @@ import json
 import numpy as np
 import pytest
 
-from nextsearch_tpu.index.segmentio import load_forward_stage, load_segment, save_manifest
-from nextsearch_tpu.tools import adddocument, forwardindex, lexicon, make_synthetic
+from nextsearch.index.segmentio import load_forward_stage, load_segment, save_manifest
+from nextsearch.tools import adddocument, forwardindex, lexicon, make_synthetic
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_adddocument_and_search(corpus, tmp_path):
         "document_parses/pmc_json/nd.xml.json", "nd", "axolotl research",
     )
     assert rc == 0
-    from nextsearch_tpu.index.segmentio import discover_segments
+    from nextsearch.index.segmentio import discover_segments
 
     assert discover_segments(index_dir) == ["seg_000001", "seg_000002"]
     seg2 = load_segment(index_dir / "segments" / "seg_000002")
@@ -67,7 +67,7 @@ def test_adddocument_and_search(corpus, tmp_path):
 
 
 def test_slice_cord19(corpus, tmp_path):
-    from nextsearch_tpu.tools import slice_cord19
+    from nextsearch.tools import slice_cord19
 
     out = tmp_path / "slice"
     rc = slice_cord19.main(
@@ -78,7 +78,7 @@ def test_slice_cord19(corpus, tmp_path):
     lines = (out / "metadata.csv").read_text().strip().split("\n")
     assert len(lines) == 11  # header + 10
     # referenced JSONs copied
-    from nextsearch_tpu.utils.csvutil import csv_row
+    from nextsearch.utils.csvutil import csv_row
 
     cols = csv_row(lines[0])
     i_pmc = cols.index("pmc_json_files")
@@ -88,7 +88,7 @@ def test_slice_cord19(corpus, tmp_path):
 
 
 def test_backup_data(tmp_path, monkeypatch):
-    from nextsearch_tpu.tools import backup_data
+    from nextsearch.tools import backup_data
 
     monkeypatch.chdir(tmp_path)
     (tmp_path / "stats.json").write_text("{}")

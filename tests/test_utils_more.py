@@ -1,9 +1,9 @@
 """Coverage for env loader, CRLF metadata rows, CORD JSON edges."""
 
-from nextsearch_tpu.index.metadata import MetadataStore
-from nextsearch_tpu.utils.cordjson import extract_text_from_cord_json
-from nextsearch_tpu.utils.csvutil import csv_row, first_author_et_al
-from nextsearch_tpu.utils.envloader import load_env_file
+from nextsearch.index.metadata import MetadataStore
+from nextsearch.utils.cordjson import extract_text_from_cord_json
+from nextsearch.utils.csvutil import csv_row, first_author_et_al
+from nextsearch.utils.envloader import load_env_file
 
 
 def test_env_loader_semantics(tmp_path):
